@@ -6,12 +6,12 @@
 lint:
 	python scripts/lint.py
 
-# fast tier (excludes slow/tpu-marked tests) — the CI gate
+# fast tier (excludes slow/gpu-marked tests) — the CI gate
 test: lint
-	python -m pytest tests/ -x -q -m "not slow and not tpu"
+	python -m pytest tests/ -x -q -m "not slow and not gpu"
 
 test-slow:
-	python -m pytest tests/ -x -q -m "slow and not tpu"
+	python -m pytest tests/ -x -q -m "slow and not gpu"
 
 test-all:
 	python -m pytest tests/ -x -q

@@ -1,4 +1,4 @@
-"""TPU-native ZK proving stack with the capabilities of
+"""JAX zero-knowledge proving stack with the capabilities of
 lambdaclass/AES_zero_knowledge_proof_circuit.
 
 Top-level surface mirrors the reference crate root (src/lib.rs:47-174):

@@ -18,7 +18,7 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="aes_zero_knowledge_proof_circuit_tpu",
-        description="Prove AES-128-ECB encryption in zero knowledge (TPU)",
+        description="Prove AES-128-ECB encryption in zero knowledge",
     )
     ap.add_argument("--message", default="Hello world! It works, pals!!!!!",
                     help="plaintext (length must be a multiple of 16)")

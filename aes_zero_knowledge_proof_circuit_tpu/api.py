@@ -9,7 +9,7 @@ src/lib.rs:47,52. Public-input convention: ciphertext bytes as LSB-first bit
 field elements (src/helpers/mod.rs:84-93).
 
 Heavy lifting is backend-selected: "host" (pure python oracle, tiny circuits)
-or "jax" (TPU path: template cache, device SRS, JaxProver).
+or "jax" (device path: template cache, SRS checkpoint, JaxProver).
 """
 
 from __future__ import annotations

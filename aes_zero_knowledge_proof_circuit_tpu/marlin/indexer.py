@@ -1,6 +1,6 @@
 """Marlin indexer: arithmetize R1CS matrices into committed index polynomials.
 
-TPU-native re-creation of the forked ark-marlin's offline phase
+A re-creation of the forked ark-marlin's offline phase
 (SURVEY.md §2b: "indexer (arithmetize A/B/C into ... indexed polys)",
 call site src/lib.rs:173 generate_proving_and_verifying_keys).
 

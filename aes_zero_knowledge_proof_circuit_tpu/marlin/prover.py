@@ -1,11 +1,11 @@
 """Marlin AHP prover (three rounds + batched KZG openings).
 
-TPU-native re-creation of the forked ark-marlin prover at the reference's hot
+A re-creation of the forked ark-marlin prover at the reference's hot
 path (SURVEY.md §3.2: round 1 w/z_A/z_B + mask, round 2 outer sumcheck over H,
 round 3 inner sumcheck over K, Fiat-Shamir between rounds, batched openings).
 All polynomial arithmetic routes through the poly/NTT layer; the heavy
 NTT/MSM calls are backend-pluggable so the same orchestration drives the host
-oracle (tests) and the JAX/TPU kernels (production sizes).
+oracle (tests) and the JAX device kernels (production sizes).
 
 Zero-knowledge: witness-carrying polynomials are randomized with vanishing
 multiples (bounded independence, one evaluation each) and committed hiding:

@@ -1,6 +1,6 @@
 """AES-128 R1CS circuit template (static, input-independent).
 
-TPU-native re-creation of the reference's circuit layer
+A re-creation of the reference's circuit layer
 (src/aes_circuit.rs + src/helpers/mod.rs + the orchestration of
 src/lib.rs:176-293 `encrypt_and_generate_constraints`). The circuit SHAPE is
 input-independent (SURVEY.md §3.3), so this module synthesizes ONCE per

@@ -1,6 +1,6 @@
 """Boolean / byte / word gadget layer with ark-style constant propagation.
 
-TPU-native equivalent of ark-r1cs-std's `Boolean`/`UInt8`/`UInt32` plus
+An equivalent of ark-r1cs-std's `Boolean`/`UInt8`/`UInt32` plus
 simpleworks' `BitwiseOperationGadget`/`ByteRotationGadget` at the reference's
 import sites (src/aes_circuit.rs:4-13, src/helpers/mod.rs:4-7; SURVEY.md §2a).
 

@@ -1,6 +1,6 @@
 """Static R1CS constraint system.
 
-TPU-native equivalent of ark-relations' ConstraintSystem at the reference's
+An equivalent of ark-relations' ConstraintSystem at the reference's
 call sites (SURVEY.md §2b): because the AES circuit's shape is input-
 independent (SURVEY.md §3.3), the system is synthesized ONCE per message
 length into index-based sparse matrices; witnesses are filled by the

@@ -1,4 +1,4 @@
-"""Leveled witness-evaluation plan: the TPU-native witness generator.
+"""Leveled witness-evaluation plan: the vectorized witness generator.
 
 The reference recomputes every witness value by re-running ~10^5 gadget
 allocations per proof (the dominant synthesis overhead, SURVEY.md §3.2

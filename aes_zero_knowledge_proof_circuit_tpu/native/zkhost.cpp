@@ -1,4 +1,4 @@
-// zkhost — native (C++) host-side BLS12-377 G1 arithmetic for the TPU ZK
+// zkhost — native (C++) host-side BLS12-377 G1 arithmetic for the JAX ZK
 // stack.
 //
 // The reference gets this tier from arkworks' native Rust (ark-ec Pippenger

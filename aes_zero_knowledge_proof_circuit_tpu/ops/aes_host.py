@@ -1,6 +1,6 @@
 """Native AES-128 (ECB) oracle in numpy.
 
-TPU-native equivalent of the reference's plain-u8 AES test oracle
+An equivalent of the reference's plain-u8 AES test oracle
 (src/aes.rs, SURVEY.md §2a "Native AES") and of the `aes` crate used by the
 example binary (src/main.rs:28-34). Vectorizable over blocks; used as ground
 truth by the circuit tests and by bench harnesses.

@@ -1,6 +1,6 @@
 """Host-side BLS12-377 elliptic curve groups G1, G2 and E(Fq12).
 
-Host oracle for the TPU curve kernels (curve_jax.py / msm_jax.py) and the
+Host oracle for the device curve kernels (curve_jax.py / msm_jax.py) and the
 group layer for the KZG verifier (kzg.py). Mirrors the role of ark-ec /
 ark-bls12-377 in the reference stack (SURVEY.md §2b).
 

@@ -1,6 +1,6 @@
 """Batched BLS12-377 G1 arithmetic over Fq float32-digit tensors (JAX).
 
-TPU-native equivalent of ark-ec's projective G1 ops (SURVEY.md §2b: "G1 point
+A JAX equivalent of ark-ec's projective G1 ops (SURVEY.md §2b: "G1 point
 add/double in Jacobian coords over 377-bit Fq as limb tensors"). Points are
 pytrees (X, Y, Z) of [..., 50] float32 digit tensors (ops/field_f32.py);
 Z digit-zero encodes infinity (infinity is only ever *created* as explicit

@@ -1,6 +1,6 @@
 """Host-side (pure Python) field tower for BLS12-377.
 
-This is the bit-exact oracle for every TPU kernel (SURVEY.md §4: "kernel-vs-
+This is the bit-exact oracle for every device kernel (SURVEY.md §4: "kernel-vs-
 host-reference exactness tests") and the implementation used by the host-side
 verifier (pairings are ms-scale; SURVEY.md §7 step 7).
 
@@ -10,7 +10,7 @@ Tower (matching the arkworks layout the reference depends on, SURVEY.md §2b):
     Fq12 = Fq6[w] / (w^2 - v)
 
 Elements are plain Python ints (Fq) or small tuples of them; all hot math on
-TPU uses the f32-digit engine in field_f32.py instead.
+The device uses the f32-digit engine in field_f32.py instead.
 """
 
 from __future__ import annotations

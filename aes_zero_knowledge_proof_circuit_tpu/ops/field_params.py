@@ -139,9 +139,9 @@ def root_of_unity(log_n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Limb configurations for TPU kernels
+# Limb configurations for device kernels
 # ---------------------------------------------------------------------------
-# TPU has no int64: field elements become [L] arrays of 16-bit limbs held in
+# Device kernels use no int64: field elements become [L] arrays of 16-bit limbs held in
 # 32-bit lanes. Products of two 16-bit limbs fit in uint32; partial products
 # are split into lo/hi halves before accumulation so all sums stay < 2^27.
 # (SURVEY.md §7 step 1.)

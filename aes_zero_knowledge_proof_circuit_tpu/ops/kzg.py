@@ -1,10 +1,10 @@
 """KZG10 polynomial commitments over BLS12-377 G1 (MarlinKZG10 semantics).
 
-TPU-native equivalent of ark-poly-commit's MarlinKZG10 at the reference's
+An equivalent of ark-poly-commit's MarlinKZG10 at the reference's
 call sites (SURVEY.md §2b): commit = fixed-base MSM over SRS powers, batched
 openings at a point with hiding randomness, pairing check on host
 (SURVEY.md §3.4). The MSM backend is pluggable: host Pippenger for tests,
-msm_jax.py on TPU for real proof sizes.
+the native or device tiers for real proof sizes.
 
 Hiding commitments (the reference proves in zero-knowledge):
     C = f(tau) G + r(tau) gamma G
@@ -86,7 +86,7 @@ def setup(max_degree: int, rng: _random.Random) -> SRS:
     """Generate the SRS from fresh toxic waste tau, gamma.
 
     Host-side incremental scalar ladder: P_{i+1} = tau * P_i. Fine for test
-    scales; large SRS generation runs on TPU (parallel/srs steps) and is
+    scales; large SRS generation runs in parallel/srs_gen.py and is
     checkpointed.
     """
     tau = rng.randrange(1, R_MOD)

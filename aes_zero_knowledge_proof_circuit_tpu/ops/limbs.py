@@ -1,6 +1,6 @@
-"""Host <-> limb-tensor conversions for TPU field elements.
+"""Host <-> limb-tensor conversions for device field elements.
 
-TPU has no int64, so field elements cross the host<->device boundary as
+Device kernels use no int64, so field elements cross the host<->device boundary as
 [..., L] uint32 tensors holding 16-bit limbs (little-endian), L=16 for Fr
 (253-bit), L=24 for Fq (377-bit) (SURVEY.md §7 step 1). This module is the
 numpy boundary; all device math lives in the f32-digit engine

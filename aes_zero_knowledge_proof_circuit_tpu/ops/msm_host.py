@@ -1,6 +1,6 @@
 """Host-side Pippenger multi-scalar multiplication (test oracle).
 
-Oracle for msm_jax.py (the TPU Pippenger kernel, SURVEY.md §7 step 5) and the
+Oracle for msm_jax.py (the device Pippenger kernel, SURVEY.md §7 step 5) and the
 MSM used for small host-scale proofs in tests. Mirrors ark-ec's
 VariableBaseMSM at the reference's KZG commit call sites (SURVEY.md §2b).
 """

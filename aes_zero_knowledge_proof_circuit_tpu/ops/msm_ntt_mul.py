@@ -1,39 +1,33 @@
-"""MXU-native Fq Montgomery multiplication via small-prime NTTs.
+"""Fq Montgomery multiplication via small-prime NTTs as matrix products
+of 7-bit planes.
 
-The f32-digit engine's schoolbook convolution (pallas_field.mul_digits) is
-VMEM-bandwidth-bound: the 50-step pad ladder moves ~80 KB of VMEM traffic
-per element, measured 78 ns/element on v5e — and the MSM scan kernel
-(msm_pallas) sits exactly at that roofline, which is why the "TPU-native"
-prover's commits ran on the host CPU through round 3 (VERDICT weak #3).
-
-This module moves the digit convolution onto the MXU (where the FLOPs
-are): a 377-bit product is an acyclic convolution of 8-bit digit vectors
+A 377-bit product is an acyclic convolution of 8-bit digit vectors
 (conv length 99 < 128), evaluated with length-128 NTTs over TWO small
 primes and reconstructed by CRT:
 
     p1 = 12289, p2 = 7681        (both ≡ 1 mod 128 → 128th roots exist)
-    t mod p   = W_p @ ((V_p @ a) ∘ (V_p @ b))       -- two s8 matmuls/side
+    t mod p   = W_p @ ((V_p @ a) ∘ (V_p @ b))       -- two plane matmuls/side
     t         = CRT(t mod p1, t mod p2)             (t < 51·319² ≪ p1·p2)
 
-Every matmul runs on the int8 MXU with exact int32 accumulation: matrices
-and data are split into 7-bit planes (x = 128·hi + lo, both planes fit
-int8; accumulation ≤ 2.1e8 < 2^31). Montgomery REDC reuses the pipeline
-with the transforms of the CONSTANTS N' and N precomputed, so a full
-mul = 16 forward-plane matmuls + 24 interpolation-plane matmuls of shape
-[128, 64] @ [64, P] — ~330k int8 MACs per element, under one MXU cycle —
-plus VPU int32 glue (carry rounds, mod-p reductions, CRT).
+Matrices and data are split into 7-bit planes (x = 128·hi + lo, both
+planes fit int8), so every plane product is exact (see _plane_dot); the
+recombined accumulation stays ≤ 2.1e8 < 2^31 in int32. Montgomery REDC
+(mul_T) reuses the pipeline with the transforms of the CONSTANTS N' and N
+precomputed, so a full mul = 16 forward-plane matmuls + 24
+interpolation-plane matmuls of shape [128, 64] @ [64, P] plus int32 glue
+(carry rounds, mod-p reductions, CRT).
 
-Layout is TRANSPOSED relative to the f32 engine: [digit, P] with the
-batch on the 128-lane axis (full lane utilization; the f32 engine's
-[N, D] layout wastes 78/128 lanes). Values are int32 digit columns in
-the same redundant band discipline as field_f32 (digits normalized to
-< 320 before each mul — the 7-bit data planes accept hi ≤ 4; values
-folded below ~6N). Montgomery radix matches field_f32 (R = 2^400), so
-digit tensors interconvert with the f32 engine by cast + transpose.
+Layout is [digit, P] with the batch on the last (wide) axis. Values are
+int32 digit columns in the same redundant band discipline as field_f32
+(digits normalized to < 320 before each mul — the 7-bit data planes
+accept hi ≤ 4; values folded below ~6N). Montgomery radix matches
+field_f32 (R = 2^400).
 
-Role: ark-ff Montgomery multiplication on the MSM hot path (SURVEY.md
-§2b ark-ff row; §7 step 1 "this is where speed-of-light per chip is won
-or lost").
+The plain-form MSM engine (ops/mxu_field.py) builds on this module's
+transform helpers (_plane_dot, _fwd, _interp, _mod_p, _split6); mul_T is the
+Montgomery reference the tests pin to host bigints.
+
+Role: ark-ff Montgomery multiplication (SURVEY.md §2b ark-ff row).
 """
 
 from __future__ import annotations
@@ -50,7 +44,7 @@ from .field_params import Q_MOD, inv_mod
 DIGITS = 50              # 8-bit digits per operand
 CONV_OUT = 2 * DIGITS    # conv coefficients 0..98; padded rows
 NTT_LEN = 128
-PAD_IN = 64              # operand rows padded for the MXU contraction
+PAD_IN = 64              # operand rows padded for the plane contraction
 PAD_OUT = 104            # conv output rows (99 -> multiple of 8)
 PRIMES = (12289, 7681)   # both ≡ 1 (mod 128); p1*p2 = 94_391_809
 R_BITS = 8 * DIGITS
@@ -171,15 +165,25 @@ def consts() -> NttMulConsts:
 
 
 # ---------------------------------------------------------------------------
-# traceable math on [rows, P] int32 values (usable inside Pallas kernels)
+# traceable math on [rows, P] int32 values
 # ---------------------------------------------------------------------------
 
 
-def _s8dot(m, x):
-    """[r, k] int8 @ [k, P] int8 -> [r, P] int32 on the MXU."""
-    return jax.lax.dot_general(
-        m, x, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)
+def _plane_dot(m, x):
+    """[r, k] int8 @ [k, P] int8 -> [r, P] int32, exactly.
+
+    Computed as a full-f32 product (Precision.HIGHEST): every operand is
+    a 7-bit plane (|v| <= 127) and k <= 128, so each sum is an integer
+    below 128 * 127^2 < 2^21 and f32 holds it exactly. An int8 x int8 ->
+    int32 dot_general is not safe here on the H100: XLA's autotuned
+    Triton GEMM returns wrong sums for the [50, 57] @ [57, 2^14]
+    reduction product of ops/mxu_field.mul_ee (PERF.md, PR 1)."""
+    out = jax.lax.dot_general(
+        m.astype(jnp.float32), x.astype(jnp.float32),
+        dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32)
+    return out.astype(jnp.int32)
 
 
 def _mod_p(x, p: int):
@@ -217,8 +221,8 @@ def _fwd(vh, vl, ah, al, p: int):
     """Length-128 NTT mod p of digit planes (7-bit V planes, 6-bit data
     planes): E = (128 Vh + Vl) @ (64 Ah + Al) mod p. Max accumulation
     8192*51*96*4 + ... ~ 2.1e8 < 2^31."""
-    e = (8192 * _s8dot(vh, ah) + 128 * _s8dot(vh, al)
-         + 64 * _s8dot(vl, ah) + _s8dot(vl, al))
+    e = (8192 * _plane_dot(vh, ah) + 128 * _plane_dot(vh, al)
+         + 64 * _plane_dot(vl, ah) + _plane_dot(vl, al))
     return _mod_p(e, p)
 
 
@@ -227,9 +231,9 @@ def _interp(wh, wl, e, p: int):
     Partial matmuls stay < 1.2e6; they are reduced mod p BEFORE the
     16384x recombination (which would overflow int32 otherwise)."""
     eh, el = _split7(e)
-    x1 = _mod_p(_s8dot(wh, eh), p)
-    x2 = _mod_p(_s8dot(wh, el) + _s8dot(wl, eh), p)
-    x3 = _mod_p(_s8dot(wl, el), p)
+    x1 = _mod_p(_plane_dot(wh, eh), p)
+    x2 = _mod_p(_plane_dot(wh, el) + _plane_dot(wl, eh), p)
+    x3 = _mod_p(_plane_dot(wl, el), p)
     return _mod_p(16384 * x1 + 128 * x2 + x3, p)
 
 
@@ -333,38 +337,8 @@ def mul_T(a, b, cs):
     return _carry2(out, PAD_IN)
 
 
-def fold_T(x, cs):
-    """Value fold below ~6N (digits may be negative or > band): subtract
-    m*2N with m from the float top-digit estimate, then two carry rounds
-    handling negatives (arithmetic shift = floor division)."""
-    inv2n = consts().inv_2n_scaled
-    est = (x[DIGITS - 1].astype(jnp.float32) * 16777216.0
-           + x[DIGITS - 2].astype(jnp.float32) * 65536.0
-           + x[DIGITS - 3].astype(jnp.float32) * 256.0
-           + x[DIGITS - 4].astype(jnp.float32)) * inv2n
-    m = jnp.maximum(jnp.floor(est) - 1.0, 0.0).astype(jnp.int32)
-    two_n = cs[13]
-    x = jnp.concatenate(
-        [x[:DIGITS] - m[None, :] * two_n, x[DIGITS:]], axis=0)
-    for _ in range(2):
-        carry = jax.lax.shift_right_arithmetic(x, 8)   # floor for negatives
-        digit = x - carry * 256
-        x = digit + jnp.concatenate(
-            [jnp.zeros_like(carry[:1]), carry[:-1]], axis=0)
-    return x
-
-
-def add_T(a, b, cs):
-    return fold_T(a + b, cs)
-
-
-def sub_T(a, b, cs):
-    return fold_T(a - b + jnp.concatenate(
-        [cs[14], jnp.zeros((PAD_IN - DIGITS, 1), jnp.int32)], axis=0), cs)
-
-
 # ---------------------------------------------------------------------------
-# host conversion + standalone pallas wrapper (testing / microbench)
+# host conversion
 # ---------------------------------------------------------------------------
 
 
@@ -396,48 +370,3 @@ def cols_to_ints(arr: np.ndarray, mont: bool = True):
             v = v * rinv % Q_MOD
         out.append(v)
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _mul_call(n_cols: int, blk: int, interpret: bool):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    cs_shapes = [a.shape for a in consts().as_arrays()]
-
-    def kern(*refs):
-        a_ref, b_ref = refs[0], refs[1]
-        cs = tuple(r[:] for r in refs[2:-1])
-        out_ref = refs[-1]
-        out_ref[:] = mul_T(a_ref[:], b_ref[:], cs)
-
-    col = pl.BlockSpec((PAD_IN, blk), lambda i: (0, i),
-                       memory_space=pltpu.VMEM)
-    const_specs = [
-        pl.BlockSpec(s, lambda i: (0, 0), memory_space=pltpu.VMEM)
-        for s in cs_shapes
-    ]
-    return pl.pallas_call(
-        kern,
-        grid=(n_cols // blk,),
-        in_specs=[col, col] + const_specs,
-        out_specs=col,
-        out_shape=jax.ShapeDtypeStruct((PAD_IN, n_cols), jnp.int32),
-        interpret=interpret,
-    )
-
-
-def ntt_mul(a_cols: jnp.ndarray, b_cols: jnp.ndarray, blk: int = 256,
-            interpret: bool | None = None) -> jnp.ndarray:
-    """Standalone Montgomery mul over [PAD_IN, N] digit columns."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n = a_cols.shape[1]
-    pad = (-n) % blk
-    if pad:
-        zp = lambda x: jnp.concatenate(
-            [x, jnp.zeros((x.shape[0], pad), x.dtype)], axis=1)
-        a_cols, b_cols = zp(a_cols), zp(b_cols)
-    call = _mul_call(n + pad, blk, interpret)
-    out = call(a_cols, b_cols, *consts().as_arrays())
-    return out[:, :n] if pad else out

@@ -1,10 +1,9 @@
-"""Plain-form (non-Montgomery) Fq arithmetic on the int8 MXU.
+"""Plain-form (non-Montgomery) Fq arithmetic on exact matrix products.
 
-The round-4 NTT-CRT Montgomery engine (ops/msm_ntt_mul.py) moved the
-digit convolution onto the MXU but kept the full REDC pipeline: every
-multiply costs THREE exact convolutions (t = a*b, m = t*N' mod R, m*N)
-plus four carry sweeps — measured 66 ns/element, only ~15% below the f32
-schoolbook roofline the Pallas MSM sits on.
+The NTT-CRT Montgomery engine (ops/msm_ntt_mul.py) puts the digit
+convolution into matrix products of 7-bit planes but keeps the full REDC
+pipeline: every multiply costs THREE exact convolutions (t = a*b,
+m = t*N' mod R, m*N) plus four carry sweeps.
 
 This module drops Montgomery form entirely.  A 377-bit modular multiply
 becomes:
@@ -12,15 +11,13 @@ becomes:
     1. ONE exact digit convolution  t = a * b          (NTT-CRT, as before)
     2. ONE reduction matmul: the high digits of t (rows 47..103) are
        folded with a precomputed matrix  M_red[:, k] = digits(2^(8*(47+k))
-       mod N), i.e.  t mod N  =  t_lo  +  M_red @ t_hi  — four int8
-       [50, 57] x [57, P] MXU matmuls with exact int32 accumulation.
+       mod N), i.e.  t mod N  =  t_lo  +  M_red @ t_hi  — four 7-bit
+       plane [50, 57] x [57, P] matmuls, exact (msm_ntt_mul._plane_dot).
     3. Two carry sweeps.
 
 No REDC, no Montgomery radix, no conversion in or out: values are plain
 integers mod N in a redundant band.  Cost is ~1/3 of the Montgomery
-engine's convolution work, which is what lets the Pallas MSM bucket scan
-(ops/msm_mxu.py) finally beat the native CPU Pippenger tier
-(VERDICT round 4, "Next round" item 1).
+engine's convolution work; the device MSM (ops/msm_mxu.py) runs on it.
 
 Representation ("band tensor"):
     [PAD_IN=64, P] int32 digit columns, radix 2^8, little-endian rows;
@@ -61,8 +58,8 @@ from .msm_ntt_mul import (
     _int_digits,
     _interp,
     _mod_p,
+    _plane_dot,
     _primitive_root,
-    _s8dot,
     _split6,
 )
 
@@ -155,7 +152,7 @@ def const_arrays():
 
 
 # ---------------------------------------------------------------------------
-# traceable ops on [rows, P] int32 band tensors (usable inside Pallas)
+# traceable ops on [rows, P] int32 band tensors
 # ---------------------------------------------------------------------------
 
 
@@ -184,8 +181,8 @@ def tr(x, cs):
     out = []
     for i, p in enumerate(PRIMES):
         vh, vl = cs[4 * i], cs[4 * i + 1]
-        e = (8192 * _s8dot(vh, xh) + 128 * _s8dot(vh, xl)
-             + 64 * _s8dot(vl, xh) + _s8dot(vl, xl))
+        e = (8192 * _plane_dot(vh, xh) + 128 * _plane_dot(vh, xl)
+             + 64 * _plane_dot(vl, xh) + _plane_dot(vl, xl))
         out.append(_mod_p(e, p))
     return tuple(out)
 
@@ -230,8 +227,8 @@ def mul_ee(ea, eb, cs):
     hi = t[FOLD_FROM:]
     hh, hl = _split6(hi)
     mh, ml = cs[8], cs[9]
-    red = (8192 * _s8dot(mh, hh) + 128 * _s8dot(mh, hl)
-           + 64 * _s8dot(ml, hh) + _s8dot(ml, hl))
+    red = (8192 * _plane_dot(mh, hh) + 128 * _plane_dot(mh, hl)
+           + 64 * _plane_dot(ml, hh) + _plane_dot(ml, hl))
     lo = jnp.concatenate(
         [t[:FOLD_FROM],
          jnp.zeros((DIGITS - FOLD_FROM,) + t.shape[1:], t.dtype)], axis=0)

@@ -3,7 +3,7 @@
 Used only by the verifier (reference: verify_proof's KZG batch check + 2
 pairings, src/lib.rs:130-136 via simpleworks; SURVEY.md §3.4 "pairing check on
 host"). ms-to-s scale on host is acceptable; all prover-side heavy math runs
-on TPU.
+on the device.
 
 e(P, Q) = f_{u,Q}(P) ^ ((q^12 - 1) / r)     (ate pairing, loop count u > 0)
 

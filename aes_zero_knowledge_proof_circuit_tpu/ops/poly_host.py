@@ -1,6 +1,6 @@
 """Host-side radix-2 NTT domains and polynomial utilities over Fr.
 
-Host oracle for ntt_jax.py (the TPU NTT kernel, SURVEY.md §7 step 4) and the
+Host oracle for ntt_jax.py (the device NTT kernel, SURVEY.md §7 step 4) and the
 polynomial toolbox for the Marlin prover/indexer. Mirrors the role of
 ark-poly's GeneralEvaluationDomain at the reference's call sites
 (SURVEY.md §2b): radix-2 FFT/iFFT over BLS12-377 Fr (2-adicity 47).
@@ -153,7 +153,7 @@ def poly_eval(p: Sequence[int], x: int) -> int:
 def poly_div_vanishing(p: Sequence[int], n: int) -> tuple[List[int], List[int]]:
     """Divide p by v = X^n - 1. Returns (quotient, remainder).
 
-    Exact-shift method (vectorizable, used identically on TPU): with
+    Exact-shift method (vectorizable, used identically on device): with
     p = sum p_i X^i, the quotient is h_i = sum_{j>=1} p_{i + j n} and the
     remainder is r_i = p_i + h_i for i < n.
     """

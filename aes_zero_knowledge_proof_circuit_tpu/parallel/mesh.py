@@ -1,8 +1,8 @@
 """Device mesh utilities (the stack's NCCL-equivalent layer).
 
 The reference is single-process (SURVEY.md §2b: parallelism = rayon only);
-scale-out here is first-class: a 1-D `jax.sharding.Mesh` over all chips, XLA
-collectives over ICI (SURVEY.md §5 distributed-communication row). The mesh
+scale-out here is first-class: a 1-D `jax.sharding.Mesh` over all devices,
+XLA collectives between them (SURVEY.md §5 distributed-communication row). The mesh
 axis shards MSM points, NTT columns, and independent block proofs
 (SURVEY.md §2b parallelism components).
 """

@@ -1,7 +1,7 @@
 """Multi-chip Pippenger MSM: points sharded across the mesh.
 
 SURVEY.md §2b "MSM parallelism: points+scalars sharded across chips, per-
-window bucket accumulation local, bucket sums reduced ... over ICI". Each
+window bucket accumulation local, bucket sums reduced". Each
 device runs the local window-sum program (ops/msm_jax._window_sums) on its
 point shard; the tiny [windows] point outputs are combined host-side
 (num_devices * num_windows Jacobian adds — microseconds)."""
@@ -12,7 +12,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh
 
 from ..ops.curve_host import AffinePoint, g1_infinity
 from ..ops.curve_jax import JacPoint, device_to_affine
@@ -27,10 +27,9 @@ def msm_sharded(
 ) -> AffinePoint:
     """MSM with the point array sharded over the mesh's (single) axis.
 
-    Points/digits may be host or device arrays; they are placed sharded, the
-    per-shard window sums run under shard_map, and the per-device partials
-    are folded on host."""
-    axis = mesh.axis_names[0]
+    Points/digits may be host or device arrays; each shard is placed on its
+    device, the per-shard window sums run there, and the per-device
+    partials are folded on host."""
     ndev = mesh.devices.size
     n = digits16.shape[0]
     # a shorter point array would silently misalign the per-device shards
@@ -49,57 +48,31 @@ def msm_sharded(
         points = JacPoint(zpad(points.x), zpad(points.y), zpad(points.z))
         digits16 = zpad(digits16)
 
-    if jax.default_backend() == "tpu":
-        # one traced program over the mesh (local bucket phases, partials
-        # gathered; compile disk-cached)
-        shard = NamedSharding(mesh, P(axis, None))
-        pts = JacPoint(
-            jax.device_put(points.x, shard),
-            jax.device_put(points.y, shard),
-            jax.device_put(points.z, shard),
+    # Each device's shard runs the local window-sum program on that device
+    # (jitted per device off the CPU, composed from field kernels on it;
+    # see ops/msm_jax._jit_off_cpu); the per-device partials come to the
+    # host for the fold.
+    total = points.x.shape[0]
+    shard_n = total // ndev
+    devs = list(mesh.devices.flat)
+    parts = []
+    for d in range(ndev):
+        sl = slice(d * shard_n, (d + 1) * shard_n)
+        put = lambda a: jax.device_put(a, devs[d])
+        local_pts = JacPoint(
+            put(points.x[sl]), put(points.y[sl]), put(points.z[sl])
         )
-        dgt = jax.device_put(digits16, shard)
-
-        def local(px, py, pz, d):
-            s = _window_sums(JacPoint(px, py, pz), d, window_bits)
-            return s.x[None], s.y[None], s.z[None]
-
-        fn = jax.shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(axis, None),) * 4,
-            out_specs=(P(axis, None, None),) * 3,
+        parts.append(
+            _window_sums(local_pts, jax.device_put(digits16[sl], devs[d]),
+                         window_bits)
         )
-        sx, sy, sz = fn(pts.x, pts.y, pts.z, dgt)
-        sx = sx.reshape(-1, sx.shape[-1])
-        sy = sy.reshape(-1, sy.shape[-1])
-        sz = sz.reshape(-1, sz.shape[-1])
-    else:
-        # XLA:CPU cannot compile the fully-traced bucket phase in acceptable
-        # time (see ops/msm_jax._add_fn); keep the identical sharding
-        # semantics — point shards placed per device, local window sums,
-        # host fold — but dispatch each shard's program eagerly.
-        total = points.x.shape[0]
-        shard_n = total // ndev
-        devs = list(mesh.devices.flat)
-        parts = []
-        for d in range(ndev):
-            sl = slice(d * shard_n, (d + 1) * shard_n)
-            put = lambda a: jax.device_put(a, devs[d])
-            local_pts = JacPoint(
-                put(points.x[sl]), put(points.y[sl]), put(points.z[sl])
-            )
-            parts.append(
-                _window_sums(local_pts, jax.device_put(digits16[sl], devs[d]),
-                             window_bits)
-            )
-        # per-device partials live on different devices; pull each to host
-        # before combining (a direct jnp.concatenate raises
-        # "Received incompatible devices")
-        host = [jax.device_get((p.x, p.y, p.z)) for p in parts]
-        sx = jnp.asarray(np.concatenate([h[0] for h in host]))
-        sy = jnp.asarray(np.concatenate([h[1] for h in host]))
-        sz = jnp.asarray(np.concatenate([h[2] for h in host]))
+    # per-device partials live on different devices; pull each to host
+    # before combining (a direct jnp.concatenate raises
+    # "Received incompatible devices")
+    host = [jax.device_get((p.x, p.y, p.z)) for p in parts]
+    sx = jnp.asarray(np.concatenate([h[0] for h in host]))
+    sy = jnp.asarray(np.concatenate([h[1] for h in host]))
+    sz = jnp.asarray(np.concatenate([h[2] for h in host]))
     # [ndev * W] window sums -> host fold
     per_dev = device_to_affine(JacPoint(sx, sy, sz))
     n_win = len(per_dev) // ndev

@@ -1,4 +1,4 @@
-"""Device-accelerated SRS generation (powers of tau on TPU).
+"""SRS generation (powers of tau): native host ladder or device ladder.
 
 The reference's `generate_universal_srs` (src/lib.rs:141) performs a ~4M-term
 fixed-base G1 MSM on CPU (SURVEY.md §3.1 "HOT"). Here the scalar ladder and

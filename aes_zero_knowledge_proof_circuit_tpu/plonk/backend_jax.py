@@ -1,4 +1,4 @@
-"""Device-path Plonk prover: the 5-round GWC19 prover on the TPU kernels.
+"""Device-path Plonk prover: the 5-round GWC19 prover on the device kernels.
 
 Lifts plonk/backend.py's round structure onto the same device toolbox the
 Marlin prover uses (ops/poly_jax NTT/coset-NTT/scans over f32-digit

@@ -1,8 +1,8 @@
 """Framework configuration (typed; SURVEY.md §5 "config/flag system").
 
 The reference has no runtime config (message length is the only parameter,
-src/lib.rs:138); the TPU build adds a small typed config: platform pinning,
-compilation cache, artifact cache directory, mesh shape.
+src/lib.rs:138); this build adds a small typed config: compilation cache,
+artifact cache directory, mesh axis name.
 """
 
 from __future__ import annotations
@@ -11,9 +11,11 @@ import os
 from dataclasses import dataclass
 from pathlib import Path
 
-_DEF_CACHE = os.environ.get(
-    "ZKAES_CACHE_DIR", os.path.join(os.path.expanduser("~"), ".cache", "zkaes-tpu")
-)
+# the checkout root: caches live inside it (listed in .gitignore)
+REPO_ROOT = Path(__file__).resolve().parents[2]
+
+_DEF_CACHE = os.environ.get("ZKAES_CACHE_DIR",
+                            str(REPO_ROOT / ".cache" / "zkaes"))
 
 
 @dataclass
@@ -48,14 +50,27 @@ def init_jax_compilation_cache() -> None:
     """Persist XLA compilations across processes — limb-arithmetic programs
     are large and re-used identically every run.
 
-    The cache directory is keyed by a host fingerprint: XLA:CPU caches AOT
-    machine code compiled for the exact CPU feature set, and reusing a cache
-    from a different machine loads binaries the loader itself flags with
-    "could lead to execution errors such as SIGILL" — observed in round 2 as
-    silently WRONG field arithmetic from round-1 cache entries."""
+    JAX_COMPILATION_CACHE_DIR, when set, names the cache and JAX reads it
+    itself. Otherwise the cache is <checkout>/.jax_cache/host_<fp>: a fixed
+    path (the path is part of the cache key) keyed by a host fingerprint,
+    because XLA:CPU caches AOT machine code for the exact CPU feature set
+    and a cache from another machine can load binaries that compute wrong
+    results or fault."""
     global _jax_cache_initialized
     if _jax_cache_initialized:
         return
+    import jax
+
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir",
+                          str(default_jax_cache_dir()))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    _jax_cache_initialized = True
+
+
+def default_jax_cache_dir() -> Path:
+    """The compile cache's directory when JAX_COMPILATION_CACHE_DIR is
+    unset."""
     import hashlib
     import platform
 
@@ -68,11 +83,7 @@ def init_jax_compilation_cache() -> None:
         jax.__version__,
     ])
     fp = hashlib.blake2s(fp_src.encode()).hexdigest()[:12]
-    cache = Path(CONFIG.cache_dir) / f"jax_cache_{fp}"
-    cache.mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    _jax_cache_initialized = True
+    return REPO_ROOT / ".jax_cache" / f"host_{fp}"
 
 
 def _cpu_flags_fingerprint() -> str:

@@ -2,7 +2,7 @@
 
 The reference converts every `SynthesisError`/`Option` miss into a typed
 `anyhow::Result` with a message (src/helpers/traits.rs:4-20) and the API
-returns `Result<_>` everywhere (src/lib.rs:60,116,138). The TPU stack's
+returns `Result<_>` everywhere (src/lib.rs:60,116,138). This stack's
 equivalent is this exception hierarchy: API misuse raises a specific
 subclass of ``ZkAesError`` instead of a bare ``AssertionError``, so callers
 can catch the family or a specific failure.

@@ -35,8 +35,7 @@ class HashDRBG(random.Random):
 
     def randbytes(self, n: int) -> bytes:
         # accumulate blocks in a list — `bytes +=` per 32-byte block is
-        # quadratic, and the prover's zk mask draws ~18MB per proof (this
-        # single call was 415 of the 779 warm-prove seconds on TPU)
+        # quadratic, and the prover's zk mask draws ~18MB per proof
         parts = [self._buf]
         have = len(self._buf)
         while have < n:

@@ -9,7 +9,7 @@ outside the loop, proving time only), emitting one JSON line per config:
 
 --profile additionally captures a jax.profiler trace of one proof per size
 (the pprof-flamegraph analog, benches/benchmark.rs:13-18) under
-~/.cache/zkaes-tpu/traces/.
+<cache_dir>/traces/ (utils/config.py).
 """
 
 from __future__ import annotations

@@ -1,109 +1,91 @@
 #!/usr/bin/env python
-"""Microbench + on-device cross-check for the int8-MXU MSM (ops/msm_mxu).
+"""Time the device MSM lane (ops/msm_mxu) against the native Pippenger.
 
-Loads the SRS checkpoint's packed points, verifies a mid-size MSM
-bit-exactly against the native CPU Pippenger, then times 2^18 / 2^20
-MSMs warm.  Appends results to artifacts/msm_mxu_tpu.json.
+Generates an SRS of 2^max_log points with the native tier, then for each
+size and each (window bits c, lanes) setting: checks that both lanes give
+the same point and prints the warm device time beside the native time.
+Prints to stdout only; needs a GPU.
 
-Usage: python scripts/bench_msm_mxu.py [--max-log 20] [--check-log 14]
+Usage: python scripts/bench_msm_mxu.py [--logs 16 18 20] [--c 13]
+           [--lanes 4096 16384 65536]
 """
 
 from __future__ import annotations
 
 import argparse
-import json
+import os
 import random
+import subprocess
+import sys
 import time
-from pathlib import Path
 
 import numpy as np
 
-import jax
-import jax.numpy as jnp
-
-from aes_zero_knowledge_proof_circuit_tpu.ops import msm_mxu as MM
-from aes_zero_knowledge_proof_circuit_tpu.ops.msm_jax import (
-    scalars_to_digit_limbs,
-)
-from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import R_MOD
-from aes_zero_knowledge_proof_circuit_tpu.utils.config import CONFIG
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--max-log", type=int, default=20)
-    ap.add_argument("--check-log", type=int, default=14)
-    ap.add_argument("--window-bits", type=int, default=None)
+    ap.add_argument("--logs", type=int, nargs="+", default=[16, 18, 20])
+    ap.add_argument("--c", type=int, nargs="+", default=[13])
+    ap.add_argument("--lanes", type=int, nargs="+", default=[1 << 14])
+    ap.add_argument("--reps", type=int, default=2)
     args = ap.parse_args()
 
-    srs_path = CONFIG.srs_dir / "srs_bls377_v2_d1048576.npz"
-    d = np.load(srs_path)
-    packed = np.ascontiguousarray(d["powers"])
-    print(f"srs packed: {packed.shape}")
+    import jax
 
-    t0 = time.time()
-    pts = MM.PlainPoints.from_packed(packed[: 1 << args.max_log])
-    pts.x.block_until_ready()
-    print(f"upload {time.time() - t0:.1f}s  backend={jax.default_backend()}")
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"no GPU (JAX found {dev.platform})")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0].strip()
+    print(f"card: {card}  ({dev.device_kind}, {os.cpu_count()} host cores)",
+          flush=True)
 
-    out = {"backend": jax.default_backend(),
-           "device": str(jax.devices()[0].device_kind),
-           "window_bits": args.window_bits or MM.WINDOW_BITS}
-    random.seed(7)
-
-    # correctness cross-check vs the native OpenMP Pippenger
-    n = 1 << args.check_log
-    scalars = [random.randrange(R_MOD) for _ in range(n)]
-    limbs = jnp.asarray(scalars_to_digit_limbs(scalars))
-    t0 = time.time()
-    got = MM.msm_mxu(pts.slice(0, n), limbs, c=args.window_bits)
-    print(f"check msm 2^{args.check_log} cold: {time.time() - t0:.1f}s")
     from aes_zero_knowledge_proof_circuit_tpu import native
+    from aes_zero_knowledge_proof_circuit_tpu.ops import msm_mxu as MM
+    from aes_zero_knowledge_proof_circuit_tpu.parallel.srs_gen import (
+        generate_srs_native,
+    )
 
-    if native.available():
-        exp = native.g1_msm_packed(
-            packed[:n], native.limbs16_to_u64(np.asarray(limbs)))
-        ok = (got.x == exp.x and got.y == exp.y and got.inf == exp.inf)
-        print("cross-check vs native:", ok)
-        out[f"check_2pow{args.check_log}_vs_native"] = bool(ok)
-        if not ok:
-            raise SystemExit("MISMATCH vs native Pippenger")
-    # native rate for comparison
-    if native.available():
-        t0 = time.time()
-        native.g1_msm_packed(packed[:n],
-                             native.limbs16_to_u64(np.asarray(limbs)))
-        nat_s = time.time() - t0
-        out["native_2pow%d_s" % args.check_log] = round(nat_s, 3)
-        out["native_mpoints_per_s"] = round(n / nat_s / 1e6, 4)
-        print(f"native 2^{args.check_log}: {nat_s:.2f}s "
-              f"({n / nat_s / 1e6:.3f} Mpoints/s)")
-
-    for log_n in (args.check_log, 18, args.max_log):
-        if log_n > args.max_log:
-            continue
+    if not native.available():
+        sys.exit("native host library unavailable")
+    t0 = time.time()
+    packed = generate_srs_native(1 << max(args.logs),
+                                 random.Random(7)).powers_g1.packed
+    print(f"SRS 2^{max(args.logs)} (native): {time.time() - t0:.1f}s",
+          flush=True)
+    pts = MM.PlainPoints.from_packed(packed[: 1 << max(args.logs)])
+    rng = np.random.default_rng(7)
+    for log_n in args.logs:
         n = 1 << log_n
-        scalars = [random.randrange(R_MOD) for _ in range(n)]
-        limbs = jnp.asarray(scalars_to_digit_limbs(scalars))
-        sl = pts.slice(0, n)
-        MM.msm_mxu(sl, limbs, c=args.window_bits)   # warm-up/compile
-        t0 = time.time()
-        MM.msm_mxu(sl, limbs, c=args.window_bits)
-        dt = time.time() - t0
-        rate = n / dt / 1e6
-        print(f"msm 2^{log_n} warm: {dt:.2f}s  ({rate:.3f} Mpoints/s)")
-        out[f"msm_2pow{log_n}_warm_s"] = round(dt, 3)
-        out[f"msm_2pow{log_n}_mpoints_per_s"] = round(rate, 4)
-
-    path = Path("artifacts/msm_mxu_tpu.json")
-    hist = []
-    if path.exists():
-        hist = json.loads(path.read_text())
-        if not isinstance(hist, list):
-            hist = [hist]
-    hist.append(out)
-    path.write_text(json.dumps(hist, indent=1))
-    print(json.dumps(out))
+        limbs = rng.integers(0, 1 << 16, size=(n, 16)).astype(np.uint32)
+        limbs[:, 15] %= 0x12AB                          # scalars below r
+        u64 = native.limbs16_to_u64(limbs)
+        nat = []
+        for _ in range(args.reps):
+            t0 = time.time()
+            want = native.g1_msm_packed(packed[:n], u64)
+            nat.append(time.time() - t0)
+        print(f"2^{log_n} native: {min(nat):.3f}s  [{card}]", flush=True)
+        for c in args.c:
+            for lanes in args.lanes:
+                t0 = time.time()
+                got = MM.msm_mxu(pts.slice(0, n), limbs, c=c, lanes=lanes)
+                cold = time.time() - t0
+                if got != want:
+                    sys.exit(f"MISMATCH 2^{log_n} c={c} lanes={lanes}")
+                warm = []
+                for _ in range(args.reps):
+                    t0 = time.time()
+                    MM.msm_mxu(pts.slice(0, n), limbs, c=c, lanes=lanes)
+                    warm.append(time.time() - t0)
+                print(f"2^{log_n} device c={c} lanes={lanes}: "
+                      f"{min(warm):.3f}s warm, {cold:.1f}s cold, "
+                      f"== native  [{card}]", flush=True)
+    print(f"peak_bytes_in_use: {dev.memory_stats()['peak_bytes_in_use']}")
 
 
 if __name__ == "__main__":

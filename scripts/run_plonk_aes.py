@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""AES-128 proved with the Plonk backend on the real TPU.
+"""AES-128 proved with the Plonk backend on the accelerator.
 
 The reference README's roadmap lists a Plonk backend (README.md:5);
 round 4 proved a synthetic chain circuit only.  This drives the full
@@ -8,7 +8,7 @@ the device prover (plonk/backend_jax.py), verifies with the host
 verifier, and runs the tampered-ciphertext negative case.
 
 Run:  python scripts/run_plonk_aes.py
-Writes timings to stdout; the round artifact records the log.
+Writes timings to stdout.
 """
 
 import logging

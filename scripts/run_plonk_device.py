@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Device-path Plonk proof at scale (synthetic circuit, real TPU).
+"""Device-path Plonk proof at scale (synthetic circuit, on the accelerator).
 
 Builds a ~2^14-gate arithmetic circuit (squaring/add chain with copy
 constraints), proves it with plonk/backend_jax.py's JaxPlonkProver (all
 polynomial math on the device kernels, commits on the native MSM tier)
 and verifies with the unchanged host verifier, plus the tamper-negative
-case. Writes the timing log the round artifact records.
+case. Writes timings to stdout.
 
 Run:  python scripts/run_plonk_device.py [log_gates]
 """

@@ -1,6 +1,6 @@
 """Batched proving API: mesh-sharded witness fill + independent proofs.
 
-The full prove path at AES scale runs on TPU (marked tpu); the CPU-mesh
+The full prove path at AES scale runs on the card (marked gpu); the CPU-mesh
 tier validates the batched, sharded witness fill produces the correct
 ciphertext bits for every message in the batch."""
 

@@ -82,3 +82,59 @@ def test_from_limb16_roundtrip():
     limbs = ops.to_canonical_limbs(a)
     back = ops.from_limb16(limbs)
     assert digits_to_ints(ops, back) == vals
+
+
+def _f32_dot_precisions(closed):
+    """Precision params of every f32 dot_general in a jaxpr, sub-jaxprs
+    (jit, scan, cond bodies) included."""
+    import jax.extend.core as jex
+
+    found = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if (eqn.primitive.name == "dot_general"
+                    and eqn.invars[0].aval.dtype == np.float32):
+                found.append(eqn.params["precision"])
+            for p in eqn.params.values():
+                for sub in (p if isinstance(p, (tuple, list)) else (p,)):
+                    if isinstance(sub, jex.ClosedJaxpr):
+                        walk(sub.jaxpr)
+                    elif isinstance(sub, jex.Jaxpr):
+                        walk(sub)
+
+    walk(closed.jaxpr)
+    return found
+
+
+@pytest.mark.parametrize("prog", ["fr_mul", "fq_mul", "ntt", "msm_madd"])
+def test_f32_dots_run_at_highest_precision(prog):
+    """The REDC matmuls and the MSM's plane products are exact only in
+    full f32: a reduced-precision pass (TF32 on a GPU) would corrupt
+    products silently, so every f32 dot_general must request
+    Precision.HIGHEST."""
+    import jax
+    import jax.numpy as jnp
+
+    from aes_zero_knowledge_proof_circuit_tpu.ops.ntt_jax import ntt_engine
+
+    if prog == "msm_madd":
+        from aes_zero_knowledge_proof_circuit_tpu.ops import msm_mxu, mxu_field
+
+        col = jnp.zeros((64, 4), jnp.int32)
+        closed = jax.make_jaxpr(
+            lambda a, q: msm_mxu.madd_in(mxu_field.const_arrays(), a, a, a,
+                                         q, q, jnp.zeros((1, 4), bool)))(
+            col, col)
+    elif prog == "ntt":
+        eng = ntt_engine(4)
+        x = jnp.zeros((16, fr_f32().D), jnp.float32)
+        closed = jax.make_jaxpr(eng._core)(x, eng._perm, eng._fwd_tab)
+    else:
+        ops = fr_f32() if prog == "fr_mul" else fq_f32()
+        a = jnp.zeros((8, ops.D), jnp.float32)
+        closed = jax.make_jaxpr(ops.mul)(a, a)
+    precs = _f32_dot_precisions(closed)
+    assert precs, "no f32 dot_general found"
+    hi = jax.lax.Precision.HIGHEST
+    assert all(p == (hi, hi) for p in precs), precs

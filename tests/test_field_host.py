@@ -1,4 +1,4 @@
-"""Host field tower tests (oracle layer for all TPU kernels)."""
+"""Host field tower tests (oracle layer for all device kernels)."""
 
 import random
 

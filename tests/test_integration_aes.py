@@ -3,18 +3,19 @@ tests/integration_tests.rs:312-337 and :339-372).
 
 The complete pipeline — cached template -> SRS checkpoint -> device/native
 indexing -> JaxProver -> host verifier — takes minutes at AES scale, so the
-positive/negative 16-byte case is marked `tpu` (run on the accelerator
-machine; `scripts/run_e2e_tpu.py` is the same flow as a script). The FIPS
-round-by-round oracle tiers live in tests/test_aes_circuit.py."""
+positive/negative 16-byte case is marked `gpu` and skips without a card
+(`ZKAES_TEST_GPU=1 python -m pytest -m gpu tests/` on the card;
+chip_smoke.py runs the same flow). The FIPS round-by-round oracle tiers
+live in tests/test_aes_circuit.py."""
 
 import pytest
 
 from aes_zero_knowledge_proof_circuit_tpu import api
 
 
-@pytest.mark.tpu
+@pytest.mark.gpu
 @pytest.mark.slow
-def test_encrypt_a_16_bytes_plaintext():
+def test_encrypt_a_16_bytes_plaintext(gpu):
     """integration_tests.rs:312-337: synthesize -> encrypt -> verify, plus
     the tampered-ciphertext rejection."""
     pk, vk = api.synthesize_keys(16, backend="jax")
@@ -28,9 +29,9 @@ def test_encrypt_a_16_bytes_plaintext():
     assert not api.verify_encryption(vk, proof, bytes(bad))
 
 
-@pytest.mark.tpu
+@pytest.mark.gpu
 @pytest.mark.slow
-def test_serialized_proof_roundtrip_verifies():
+def test_serialized_proof_roundtrip_verifies(gpu):
     from aes_zero_knowledge_proof_circuit_tpu.utils.serialize import (
         deserialize_proof,
         serialize_proof,

@@ -3,9 +3,9 @@
 Mirrors the reference's kernel-vs-host exactness strategy (SURVEY.md §4:
 "NTT/MSM kernel tests vs slow host reference implementations"): every
 device op is checked bit-exactly against Python bigints / the host
-curve.  CPU runs use interpret-mode Pallas and c=8 windows (small
-merge/fold graphs); the TPU path is exercised by
-scripts/bench_msm_mxu.py with a native-Pippenger cross-check.
+curve.  CPU runs use c=8 windows (small merge/fold graphs); on the card,
+chip_smoke.py and scripts/bench_msm_mxu.py cross-check the lane against
+the native Pippenger.
 """
 
 import random
@@ -190,7 +190,7 @@ class TestSignedDigits:
 
 
 class TestMsmMxu:
-    @pytest.mark.slow  # ~5 min: interpret-mode scan over 32 windows
+    @pytest.mark.slow  # XLA:CPU scan over 32 windows
     def test_vs_host_msm(self):
         random.seed(14)
         g = g1_generator()
@@ -204,7 +204,7 @@ class TestMsmMxu:
         exp = msm_host.msm(pts, scalars)
         pp = MM.PlainPoints.from_affine(pts)
         limbs = scalars_to_digit_limbs(scalars)
-        got = MM.msm_mxu(pp, limbs, interpret=True, c=8)
+        got = MM.msm_mxu(pp, limbs, c=8)
         assert (got.x, got.y, got.inf) == (exp.x, exp.y, exp.inf)
 
     def test_from_packed_matches_from_affine(self):
@@ -222,7 +222,7 @@ class TestMsmMxu:
 
 
 class TestMsmMxuSegmented:
-    @pytest.mark.slow  # ~5 min interpret-mode
+    @pytest.mark.slow  # XLA:CPU scan, two segments
     def test_multi_segment_merge_vs_host(self, monkeypatch):
         """Forces the >MAX_SEGMENT path (64-byte-config MSM shape): two
         512-point segments per window, bucket-table merge, and the
@@ -236,6 +236,5 @@ class TestMsmMxuSegmented:
         scalars = [random.randrange(R_MOD) for _ in range(n)]
         exp = msm_host.msm(pts, scalars)
         got = MM.msm_mxu(MM.PlainPoints.from_affine(pts),
-                         scalars_to_digit_limbs(scalars),
-                         interpret=True, c=8)
+                         scalars_to_digit_limbs(scalars), c=8, lanes=64)
         assert (got.x, got.y, got.inf) == (exp.x, exp.y, exp.inf)

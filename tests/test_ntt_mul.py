@@ -1,9 +1,9 @@
-"""MXU NTT-CRT Montgomery multiplier vs the host oracle.
+"""NTT-CRT Montgomery multiplier (mul_T) vs the host oracle.
 
 ops/msm_ntt_mul.py re-creates ark-ff Montgomery multiplication with the
-digit convolution on the int8 MXU (length-128 NTTs mod 12289/7681 + CRT);
-these tests pin it bit-exactly to host bigint arithmetic, including digit
-bands produced by chained operations."""
+digit convolution in exact matrix products of 7-bit planes (length-128
+NTTs mod 12289/7681 + CRT); these tests pin it bit-exactly to host
+bigint arithmetic, including digit bands produced by chained operations."""
 
 import random
 
@@ -16,8 +16,11 @@ from aes_zero_knowledge_proof_circuit_tpu.ops import msm_ntt_mul as NM
 from aes_zero_knowledge_proof_circuit_tpu.ops.field_params import Q_MOD
 
 
-def _interp():
-    return jax.default_backend() != "tpu"
+_mul = jax.jit(NM.mul_T)
+
+
+def _mul_T(a, b):
+    return _mul(a, b, NM.consts().as_arrays())
 
 
 def test_ntt_mul_matches_host():
@@ -29,7 +32,7 @@ def test_ntt_mul_matches_host():
     vals_b[1] = Q_MOD - 1
     a = jnp.asarray(NM.ints_to_cols(vals_a))
     b = jnp.asarray(NM.ints_to_cols(vals_b))
-    out = NM.ntt_mul(a, b, blk=32, interpret=_interp())
+    out = _mul_T(a, b)
     got = NM.cols_to_ints(np.asarray(out))
     assert got == [x * y % Q_MOD for x, y in zip(vals_a, vals_b)]
 
@@ -44,7 +47,7 @@ def test_ntt_mul_chained_band_stable():
     for _ in range(4):
         # Montgomery rep v*R squares to v^2*R under REDC-mul: plain
         # value squaring when both sides use ints_to/cols_to round-trip
-        cur = NM.ntt_mul(cur, cur, blk=16, interpret=_interp())
+        cur = _mul_T(cur, cur)
         want = [w * w % Q_MOD for w in want]
     got = NM.cols_to_ints(np.asarray(cur))
     assert got == want
@@ -72,8 +75,7 @@ def test_ntt_mul_fold_band_inputs():
         [np.zeros((1, n), np.int32), carry[:-1]], axis=0)
     assert shifted.max() <= NM.DIGIT_BAND
     b = NM.ints_to_cols([r.randrange(Q_MOD) for _ in range(n)])
-    out = NM.ntt_mul(jnp.asarray(shifted), jnp.asarray(b), blk=8,
-                     interpret=_interp())
+    out = _mul_T(jnp.asarray(shifted), jnp.asarray(b))
     got = NM.cols_to_ints(np.asarray(out))
     base_vals = NM.cols_to_ints(base)
     b_vals = NM.cols_to_ints(b)

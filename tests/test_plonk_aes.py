@@ -2,8 +2,8 @@
 
 Fast tier checks the S-box/xtime pieces gate-by-gate against the native
 AES tables; the full-circuit satisfaction + tamper case is slow-marked
-(the ~272k-gate build takes ~a minute on the 2-CPU host); the TPU proof
-artifact comes from scripts/run_plonk_aes.py.
+(the ~272k-gate build takes ~a minute on the 2-CPU host); the device
+proof runs through scripts/run_plonk_aes.py.
 """
 
 import pytest

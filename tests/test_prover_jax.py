@@ -91,3 +91,39 @@ def test_schedule_msms_makespan():
 
     # a single small MSM is cheaper on the host than one device latency
     assert _schedule_msms([4096, 4096], lat, r_dev, r_nat) == set()
+
+
+def test_device_lane_routing(monkeypatch):
+    """The device MSM lane is off unless ZKAES_MSM_MXU=1 forces it, and
+    never on a mesh; msm_device runs the plain f32 Pippenger without loading any
+    Pallas module."""
+    import sys
+
+    import jax.numpy as jnp
+
+    from aes_zero_knowledge_proof_circuit_tpu.marlin import prover_jax as PJ
+    from aes_zero_knowledge_proof_circuit_tpu.ops import msm_host, msm_jax
+    from aes_zero_knowledge_proof_circuit_tpu.ops.curve_host import (
+        g1_generator,
+    )
+    from aes_zero_knowledge_proof_circuit_tpu.ops.curve_jax import (
+        affine_to_device,
+    )
+
+    monkeypatch.delenv("ZKAES_MSM_MXU", raising=False)
+    assert not PJ.device_lane_on()
+    monkeypatch.setenv("ZKAES_MSM_MXU", "1")
+    assert PJ.device_lane_on()
+    assert not PJ.device_lane_on(mesh=object())
+    monkeypatch.setenv("ZKAES_MSM_MXU", "0")
+    assert not PJ.device_lane_on()
+
+    g = g1_generator()
+    pts = [g.mul_scalar(k) for k in (3, 5, 7, 11)]
+    scalars = [rng.randrange(R_MOD) for _ in pts]
+    got = msm_jax.msm_device(
+        affine_to_device(pts),
+        jnp.asarray(msm_jax.scalars_to_digit_limbs(scalars)))
+    assert got == msm_host.msm(pts, scalars)
+    assert not [m for m in sys.modules if "pallas" in m.split(".")[-1]
+                and m.startswith("aes_zero_knowledge_proof_circuit_tpu")]
